@@ -1,4 +1,4 @@
-"""sqlp_tpu — a TPU-native two-stage regularized Stochastic Decomposition solver.
+"""sqlp_tpu — a two-stage regularized Stochastic Decomposition solver in JAX.
 
 A from-scratch JAX/XLA framework with the capabilities of the reference Julia
 implementation yhz0/SQLP (module ``TwoSD``): SMPS problems compile to dense
@@ -13,7 +13,7 @@ Layer map (mirrors reference layers, see SURVEY.md §1):
   models/    problem model: SMPS parsers, stage templates, scenario model,
              instance compilation to device tensors, extensive form (crash)
   ops/       numerical kernels: batched PDHG LP solver, ADMM prox-QP master,
-             Pallas kernels for the hot inner loops
+             dual-vertex crossover
   sd/        the SD algorithm: dual pool, cuts/epigraphs, incumbent logic,
              prox-weight schedules, the jitted iteration, driver loop
   parallel/  device mesh construction + sharding specs

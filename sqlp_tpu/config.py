@@ -42,13 +42,6 @@ class PDHGConfig:
     omega_smoothing: float = 0.5
     # Ruiz equilibration sweeps applied to W at instance-compile time.
     ruiz_iters: int = 10
-    # Fused VMEM-resident Pallas kernel for the inner PDHG round (TPU only;
-    # ignored on other backends).
-    use_pallas: bool = True
-    # Small-block (sub-128-row) kernels: use exact f32 dots instead of
-    # bf16x3. At 8 rows the extra MXU passes are latency-noise; whether
-    # they buy convergence is instance-dependent (see ops/pallas).
-    pallas_exact_small: bool = False
     # Batch compaction: convergence across a scenario panel is heavily
     # skewed (ssn B=4096: 95% of LPs done by round 80, the last at 423), so
     # once the active count fits a smaller static batch, sort converged
@@ -77,9 +70,6 @@ class QPConfig:
     rho: float = 0.1
     rho_eq_scale: float = 1e3
     over_relax: float = 1.6
-    # Fused VMEM-resident Pallas kernel for the ADMM check interval (TPU
-    # f32 direct-inverse path only; ignored elsewhere).
-    use_pallas: bool = True
     # Windowed stagnation cutoff: every `stall_rounds` check intervals the
     # best KKT error seen must have improved by >=3% over the previous
     # window, else the solve stops — the iterate is at its (dtype) numeric
@@ -93,9 +83,10 @@ class QPConfig:
     # need multiple rho kicks in both directions before giving up. The SD
     # master — where a floored-but-stationary iterate is tolerable because
     # the repair pipeline in sd_step closes residual violations — tightens
-    # these to 3/1 via SDConfig's qp override (measured on-TPU ssn/storm:
-    # 3-round windows with a single probe restart cut mean ADMM iterations
-    # ~2.8x with unchanged trajectories and the same converged fraction).
+    # these to 3/1 via SDConfig's qp override (found on ssn/storm f32
+    # masters: 3-round windows with a single probe restart cut mean ADMM
+    # iterations ~2.8x with unchanged trajectories and the same converged
+    # fraction).
     stall_rounds: int = 6
     # A stalled window first forces a rho rebalance/kick (plateaus are
     # usually rho stuck in the adaptation deadband — seen on the lands
@@ -127,9 +118,9 @@ class QPConfig:
     # (a stale (z, mu) can trap ADMM for its whole budget; see the retry
     # block in solve_qp). Disable under vmap — jax.lax.cond lowers to a
     # select there, so every replication pays the full second ADMM loop
-    # every master solve whether or not any needed it (measured 45% of
-    # the replicated SD step); the stall caps and sd_step's feasibility
-    # guard/repairs backstop the rare trap instead.
+    # every master solve whether or not any needed it; the stall caps
+    # and sd_step's feasibility guard/repairs backstop the rare trap
+    # instead.
     warm_retry: bool = True
     # ... and only when the warm error is FAR from tolerance: the
     # observed stale-warm-start trap exits at err ~1e-2, while an f32
@@ -226,20 +217,20 @@ class SDConfig:
     dual_crossover: bool = True
     # Adaptive off-switch: after this many CONSECUTIVE iterations in which
     # the crossover accepted zero duals, stop running it (lax.cond skips
-    # the batched [m2, m2] active-set solves — 41% of the storm step,
-    # where f32 rounding never passes the dual-feasibility acceptance:
+    # the batched [m2, m2] active-set solves — a large share of the storm
+    # step, where f32 rounding never passes the dual-feasibility acceptance:
     # measured 0/96 accepted on storm vs 23-50% on lands/transship/ssn).
     # One acceptance resets the counter; once dry past the limit it stays
     # off (a pool that rejected 64 straight rounds will not start
     # accepting as duals get harder). 0 disables the gate.
     crossover_dry_limit: int = 64
-    # Once the f32 acceptance runs dry, re-run the rounding in emulated
-    # f64 on the SD step's small panel instead of skipping it (VERDICT
-    # r3: on storm the f32 test passes 0/96 duals and the gate just
-    # turns sharpening off). The f64 active-set solves reach the 1e-6
-    # dual-feasibility acceptance where f32 floors. Costs an emulated
-    # [m2, m2] factorization per sweep; off by default — enable per
-    # instance after an A/B (RESULTS.md r4 records the storm numbers).
+    # Once the f32 acceptance runs dry, re-run the rounding in f64 on the
+    # SD step's small panel instead of skipping it (VERDICT r3: on storm
+    # the f32 test passes 0/96 duals and the gate just turns sharpening
+    # off). The f64 active-set solves reach the 1e-6 dual-feasibility
+    # acceptance where f32 floors. Costs an f64 [m2, m2] factorization
+    # per sweep; off by default — enable per instance after an A/B
+    # (RESULTS.md r4 records the storm quality numbers).
     crossover_f64_fallback: bool = False
 
     # --- numerics ---

@@ -1,6 +1,6 @@
 """On-device scenario model: padded marginal tables + batched sampler.
 
-TPU-native replacement for the reference's per-iteration host sampling
+On-device replacement for the reference's per-iteration host sampling
 (``rand(sto)``, src/smps/smps_sto.jl:117-149) and per-scenario sparse delta
 extraction (``delta_coefficients``, src/sd_algorithm/subprob.jl:104-121).
 

@@ -8,8 +8,8 @@ Same section set (NAME/ROWS/COLUMNS/RHS/BOUNDS/ENDATA), same defaults
 is +inf), same assertion that the first row is the objective ('N') row.
 
 The template matrix is dense NumPy here (the reference uses a sparse CSC);
-all shipped instances are small enough that dense is the right layout for a
-TPU compile target.
+all shipped instances are small enough that dense is the right layout for
+the accelerator's matmuls.
 """
 
 from __future__ import annotations

@@ -10,8 +10,8 @@ under-attains vs the optimal vertex.
 
 This module rounds a batch of PDHG dual iterates to vertices of the dual
 polyhedron by one active-set least-squares solve (a "crossover" in the
-LP-solver sense, done batched on the MXU instead of serially on a basis
-factorization):
+LP-solver sense, done as one batched linear solve instead of serially on
+a basis factorization):
 
   1. read the active structure off the primal-dual pair: rows with tight
      slack (or equality sense) may carry a multiplier; columns strictly
@@ -108,51 +108,6 @@ def sharpen_duals(W: jax.Array, q: jax.Array, senses: jax.Array,
     q_scale = 1.0 + jnp.abs(q)
     qd = q.astype(dt)
 
-    # f64 LU decomposition has no TPU lowering ("Only F32 and C64 types
-    # are implemented in LuDecomposition"), so the f64-fallback path
-    # (SDConfig.crossover_f64_fallback) solves the regularized SPD
-    # normal equations by batched conjugate gradients instead — matmuls
-    # only, which the TPU emulates in f64. CG reaches LU-level accuracy
-    # here because M is diagonally regularized; the trip count m is the
-    # exact-arithmetic worst case and the loop exits early on a tiny
-    # residual.
-    use_cg = (dt == jnp.float64 and jax.default_backend() == "tpu")
-
-    def _batched_spd_solve(M, rhs):
-        if not use_cg:
-            return jnp.linalg.solve(M, rhs[..., None])[..., 0]
-
-        def mv(p):
-            return jnp.einsum("bij,bj->bi", M, p,
-                              precision=_PREC)
-
-        r0 = rhs
-        x0 = jnp.zeros_like(rhs)
-        p0 = r0
-        rs0 = jnp.sum(r0 * r0, axis=-1)
-        tol2 = (1e-14 * (1.0 + jnp.sum(rhs * rhs, axis=-1)))
-
-        def body(carry):
-            x, r, p, rs, k = carry
-            Mp = mv(p)
-            denom = jnp.sum(p * Mp, axis=-1)
-            alpha = jnp.where(denom > 0, rs / jnp.maximum(denom, 1e-300),
-                              0.0)
-            x = x + alpha[:, None] * p
-            r = r - alpha[:, None] * Mp
-            rs1 = jnp.sum(r * r, axis=-1)
-            beta = rs1 / jnp.maximum(rs, 1e-300)
-            p = r + beta[:, None] * p
-            return x, r, p, rs1, k + 1
-
-        def cond(carry):
-            _, _, _, rs, k = carry
-            return jnp.logical_and(k < m, jnp.any(rs > tol2))
-
-        x, _, _, _, _ = jax.lax.while_loop(
-            cond, body, (x0, r0, p0, rs0, jnp.zeros((), jnp.int32)))
-        return x
-
     def solve_ls(interior_f, row_active_b):
         Wc = W[None, :, :] * interior_f[:, None, :]            # [B, m, n]
         M = jnp.matmul(Wc, jnp.swapaxes(Wc, 1, 2),
@@ -163,7 +118,7 @@ def sharpen_duals(W: jax.Array, q: jax.Array, senses: jax.Array,
                              1e-8 * (1.0 + jnp.abs(M).max()), 1.0)
         M = M + jax.vmap(jnp.diag)(diag_reg)
         rhs = jnp.matmul(Wc, qd, precision=_PREC) * ra         # [B, m]
-        return _batched_spd_solve(M, rhs)
+        return jnp.linalg.solve(M, rhs[..., None])[..., 0]
 
     def sweep(carry):
         interior, row_act, _, _, k = carry
@@ -188,8 +143,8 @@ def sharpen_duals(W: jax.Array, q: jax.Array, senses: jax.Array,
         # Early exit: stable sets reproduce the same pi on the next sweep
         # (solve_ls is deterministic in the sets), so once neither set
         # moved the remaining sweeps are identical re-solves. The batched
-        # [B, m, m] factorization dominates sharpen_duals (~1ms/sweep on
-        # storm-size W); sets typically stabilize in 2-3 of the 6 sweeps.
+        # [B, m, m] factorization dominates sharpen_duals; sets typically
+        # stabilize in 2-3 of the 6 sweeps.
         changed = jnp.logical_or(
             jnp.any(interior1 != interior), jnp.any(row_act1 != row_act))
         return interior1, row_act1, pi, changed, k + 1

@@ -1,4 +1,4 @@
-"""Batched first-order LP solver (restarted PDHG, PDLP-style) for TPU.
+"""Batched first-order LP solver (restarted PDHG, PDLP-style).
 
 This kernel replaces the reference's per-scenario external LP solver
 round-trips (JuMP -> MOI -> GLPK/CPLEX, ``solve_problem!``,
@@ -14,8 +14,7 @@ randomness, SURVEY.md quirk 7). The solver therefore:
   * prepares W once: sense-flip '<=' rows to '>=', Ruiz-equilibrate,
     estimate the spectral norm by power iteration (``prepare_lp``);
   * runs one batched PDHG recursion over the whole panel where every
-    operator application is a [B, n] x [n, m] matmul on the MXU
-    (``solve_batch``);
+    operator application is one [B, n] x [n, m] matmul (``solve_batch``);
   * restarts to the Polyak average every ``restart_every`` steps and
     adapts the primal weight omega, following PDLP's restart scheme;
   * returns objectives, primal solutions, and row duals in the JuMP
@@ -35,17 +34,16 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from sqlp_tpu.config import PDHGConfig
 from sqlp_tpu.models.stage import SENSE_E, SENSE_L
 
 _BIG = 1e30  # stand-in for +inf inside where-masks (keeps grads/NaNs away)
 
-# TPU MXU f32 matmuls default to bfloat16 passes (~8 mantissa bits), which
-# caps PDHG at ~5e-3 KKT residuals and defeats early termination. HIGHEST
-# forces full-f32 accumulation; measured on v5e this is a net win (800 iters
-# @ 1e-6 beats 40k stalled low-precision iters).
+# Reduced-precision f32 matmuls (bfloat16 passes, or TF32 on the GPU's
+# tensor cores) keep ~8-10 mantissa bits, which caps PDHG at ~5e-3 KKT
+# residuals and defeats early termination. HIGHEST forces full-f32
+# products.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -210,15 +208,13 @@ def solve_batch(lp: PreparedLP, H: jax.Array, config: PDHGConfig = PDHGConfig(),
         term, so the old optimum is a near-feasible start).
       Q: optional [B, n] PER-ELEMENT objective in original units —
         random-cost instances (reference TODO 6), where every scenario LP
-        carries its own q_s. Overrides lp.q; the Pallas round takes it as
-        a row-blocked [blk, n] operand (shared-q runs keep the broadcast
-        [1, n] load and are bitwise unchanged).
+        carries its own q_s. Overrides lp.q.
 
     Returns:
       (obj [B], Y [B, n], Pi [B, m], stats) — Pi in the JuMP d(obj)/d(rhs)
       convention on the original rows; obj/Y/Pi are unscaled.
     """
-    B_orig, m = H.shape
+    B, m = H.shape
     n = lp.n
     dtype = lp.K.dtype
     # under an x64-enabled runtime callers easily produce f64 panels
@@ -226,42 +222,6 @@ def solve_batch(lp: PreparedLP, H: jax.Array, config: PDHGConfig = PDHGConfig(),
     H = H.astype(dtype)
     if Q is not None:
         Q = Q.astype(dtype)
-
-    # The fused Pallas round keeps K and the block iterates VMEM-resident
-    # across iterations (the XLA loop streams the panels through HBM every
-    # iteration and is bandwidth-bound at large B, and pays per-op kernel
-    # dispatch latency ~3us/iteration at small B). TPU-only; batch padded
-    # to the kernel block size with copies of row 0 (they converge and are
-    # cut off). The block adapts to the panel: 128 rows for large panels
-    # (MXU row utilization), the sublane multiple for small ones — the SD
-    # step's 2EB-element solves run thousands of sequential iterations
-    # where the VMEM-resident round is ~4x faster than the XLA loop
-    # (padding 2 -> 128 instead was measured SLOWER: 89 vs 102 it/s).
-    # f32-only: the VMEM kernel's carries are f32 (an f64 lp on the TPU
-    # backend — e.g. the MC evaluator's escalation re-solve — must take
-    # the XLA path or the kernel trace fails on mismatched carry dtypes)
-    use_pallas = (bool(config.use_pallas)
-                  and jax.default_backend() == "tpu"
-                  and dtype == jnp.float32)
-    if use_pallas:
-        from sqlp_tpu.ops.pallas.pdhg_kernel import (
-            pdhg_round_pallas, pdhg_round_pallas_halpern, pick_blk)
-        BLK = pick_blk(B_orig, lp.m, lp.n)
-        B = ((B_orig + BLK - 1) // BLK) * BLK
-        if B != B_orig:
-            H = jnp.concatenate(
-                [H, jnp.broadcast_to(H[:1], (B - B_orig, m))], axis=0)
-            if Y0 is not None:
-                Y0 = jnp.concatenate(
-                    [Y0, jnp.broadcast_to(Y0[:1], (B - B_orig, n))], axis=0)
-            if L0 is not None:
-                L0 = jnp.concatenate(
-                    [L0, jnp.broadcast_to(L0[:1], (B - B_orig, m))], axis=0)
-            if Q is not None:
-                Q = jnp.concatenate(
-                    [Q, jnp.broadcast_to(Q[:1], (B - B_orig, n))], axis=0)
-    else:
-        B = B_orig
 
     ht = H * (lp.flip * lp.row_scale)[None, :]          # scaled, flipped rhs
 
@@ -273,7 +233,7 @@ def solve_batch(lp: PreparedLP, H: jax.Array, config: PDHGConfig = PDHGConfig(),
 
     halpern = config.scheme == "halpern"
 
-    def pd_round(el, pallas_ok):
+    def pd_round(el):
         """restart_every PDHG steps on one element-state dict.
 
         omega is per batch element: each scenario LP carries its own
@@ -294,14 +254,6 @@ def solve_batch(lp: PreparedLP, H: jax.Array, config: PDHGConfig = PDHGConfig(),
 
         if halpern:
             kh, Yanc, Lanc = el["kh"], el["Yanc"], el["Lanc"]
-            if pallas_ok:
-                Y, L, Yc, Lc = pdhg_round_pallas_halpern(
-                    lp.K, el.get("Q", lp.q), lb, ub, lp.is_eq, ht,
-                    tau[:, 0], sig[:, 0],
-                    Y, L, kh, Yanc, Lanc, config.restart_every, blk=BLK,
-                    exact=config.pallas_exact_small and BLK < 128)
-                return Y, L, [(Yc, Lc)]
-
             def body(t, carry):
                 Y, L, _, _ = carry
                 G = qrow - _dot(L, lp.K)
@@ -319,14 +271,6 @@ def solve_batch(lp: PreparedLP, H: jax.Array, config: PDHGConfig = PDHGConfig(),
                 0, config.restart_every, body, (Y, L, Y, L))
             return Y, L, [(Yc, Lc)]
 
-        if pallas_ok:
-            Y, L, Ya, La = pdhg_round_pallas(
-                lp.K, el.get("Q", lp.q), lb, ub, lp.is_eq, ht,
-                tau[:, 0], sig[:, 0],
-                Y, L, config.restart_every, blk=BLK,
-                exact=config.pallas_exact_small and BLK < 128)
-            return Y, L, [(Y, L), (Ya, La)]
-
         def body(_, carry):
             Y, L, Ys, Ls, cnt = carry
             G = qrow - _dot(L, lp.K)                     # [B, n]
@@ -339,9 +283,9 @@ def solve_batch(lp: PreparedLP, H: jax.Array, config: PDHGConfig = PDHGConfig(),
         Y, L, Ys, Ls, cnt = jax.lax.fori_loop(0, config.restart_every, body, init)
         return Y, L, [(Y, L), (Ys / cnt, Ls / cnt)]
 
-    def round_step(el, pallas_ok):
+    def round_step(el):
         """One restart round on a dict of per-element state."""
-        Ycarry, Lcarry, cands = pd_round(el, pallas_ok)
+        Ycarry, Lcarry, cands = pd_round(el)
         Qs = el.get("Q")
 
         Yc, Lc = cands[0]
@@ -452,7 +396,7 @@ def solve_batch(lp: PreparedLP, H: jax.Array, config: PDHGConfig = PDHGConfig(),
     # the uncompacted solver except that done elements stop iterating.
     sizes = [B]
     if config.compaction and B >= config.compact_min_batch:
-        floor = BLK if use_pallas else 256
+        floor = 256
         while len(sizes) < 4:
             nxt = -(-max(floor, sizes[-1] // 4) // floor) * floor
             if nxt >= sizes[-1]:
@@ -469,16 +413,15 @@ def solve_batch(lp: PreparedLP, H: jax.Array, config: PDHGConfig = PDHGConfig(),
             sub = {k: v[order] for k, v in el.items()}
         else:
             sub = el
-        pallas_ok = use_pallas and size % BLK == 0
 
         def cond(carry, stop=stop):
             s, it = carry
             return jnp.logical_and(it < n_rounds,
                                    jnp.sum(~s["done"]) > stop)
 
-        def body(carry, pallas_ok=pallas_ok):
+        def body(carry):
             s, it = carry
-            return round_step(s, pallas_ok), it + 1
+            return round_step(s), it + 1
 
         sub, it = jax.lax.while_loop(cond, body, (sub, it))
         phase_rounds.append(it)
@@ -488,16 +431,16 @@ def solve_batch(lp: PreparedLP, H: jax.Array, config: PDHGConfig = PDHGConfig(),
             el = sub
     rounds = it
 
-    # Cut off padding rows, unscale back to the original problem.
-    Yb = el["Yb"][:B_orig]
-    Lb = el["Lb"][:B_orig]
-    err = el["err_best"][:B_orig]
-    done = el["done"][:B_orig]
+    # Unscale back to the original problem.
+    Yb = el["Yb"]
+    Lb = el["Lb"]
+    err = el["err_best"]
+    done = el["done"]
     omega = el["omega"]
     Y_out = Yb * lp.col_scale[None, :]
     Pi_out = Lb * (lp.row_scale * lp.flip)[None, :]
     obj = _dot(Y_out, lp.q / lp.col_scale) if Q is None \
-        else jnp.sum(Y_out * Q[:B_orig], axis=-1)
+        else jnp.sum(Y_out * Q, axis=-1)
 
     stats = {
         "pdhg_rounds": rounds,

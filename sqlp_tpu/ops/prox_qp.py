@@ -30,7 +30,6 @@ pruning uses |mu| so the sign never matters (algorithm.jl:63).
 
 from __future__ import annotations
 
-import dataclasses
 from functools import partial
 from typing import Optional, Tuple
 
@@ -44,41 +43,6 @@ _PREC = jax.lax.Precision.HIGHEST
 
 def _dot(a, b):
     return jnp.matmul(a, b, precision=_PREC)
-
-
-def _pcg(M: jax.Array, b: jax.Array, x0: jax.Array, iters: int) -> jax.Array:
-    """Jacobi-preconditioned CG for SPD M (dense, small).
-
-    Factor-free on purpose: emulated-f64 Cholesky/triangular-solve inside a
-    fori_loop crashes the TPU worker (observed on storm-size masters);
-    CG uses only matvecs, which lower everywhere. Warm starts make the
-    fixed iteration count cheap in the ADMM setting.
-    """
-    dinv = 1.0 / jnp.diag(M)
-
-    def body(_, carry):
-        x, r, p, rz = carry
-        Mp = _dot(M, p)
-        denom = jnp.dot(p, Mp)
-        # Guard BOTH exact convergence and tiny denominators: at rz == 0
-        # (an exactly-warm-started solve) the unguarded beta = rz_new/rz
-        # is NaN, and x + 0*NaN = NaN — this poisoned a whole SD state on
-        # ssn. 1e-30 is a normal f32, so the guard works in both dtypes.
-        ok = jnp.logical_and(denom > 1e-30, rz > 1e-30)
-        alpha = jnp.where(ok, rz / jnp.where(ok, denom, 1.0), 0.0)
-        x = x + alpha * p
-        r = r - alpha * Mp
-        z = dinv * r
-        rz_new = jnp.dot(r, z)
-        beta = jnp.where(rz > 1e-30, rz_new / jnp.where(rz > 1e-30, rz, 1.0),
-                         0.0)
-        return x, r, z + beta * p, rz_new
-
-    r0 = b - _dot(M, x0)
-    z0 = dinv * r0
-    x, r, p, rz = jax.lax.fori_loop(
-        0, iters, body, (x0, r0, z0, jnp.dot(r0, z0)))
-    return x
 
 
 @partial(jax.jit, static_argnames=("config",))
@@ -112,15 +76,9 @@ def solve_qp(p_diag: jax.Array, g: jax.Array, A: jax.Array,
     out_dtype = A.dtype
     # The master is tiny but can be badly scale-mixed (storm: cut rows ~1e7
     # vs x bounds ~1e2) — f32 ADMM cannot reach per-row feasibility there.
-    # Compute in f64 whenever the runtime allows it (TPU f64 emulation is
-    # cheap at these sizes); inputs/outputs stay in the caller's dtype.
-    # NOT on TPU by default: emulated-f64 in the chunked SD loop faults the
-    # TPU worker at storm-size masters (kernel bug; reproduced with both
-    # Cholesky and CG z-updates). SQLP_QP_F64=1 forces it on anyway.
-    import os as _os
-    _f64_default = "0" if jax.default_backend() == "tpu" else "1"
-    if (jax.config.jax_enable_x64 and out_dtype != jnp.float64
-            and _os.environ.get("SQLP_QP_F64", _f64_default) != "0"):
+    # Compute in f64 whenever x64 is enabled; inputs/outputs stay in the
+    # caller's dtype.
+    if jax.config.jax_enable_x64 and out_dtype != jnp.float64:
         dtype = jnp.dtype(jnp.float64)
         f = lambda a: jnp.asarray(a, dtype)
         p_diag, g, A, l, u = map(f, (p_diag, g, A, l, u))
@@ -135,8 +93,6 @@ def solve_qp(p_diag: jax.Array, g: jax.Array, A: jax.Array,
     eff_tol = max(config.tol, 512.0 * float(jnp.finfo(dtype).eps))
     sig = jnp.asarray(config.sigma, dtype)
     alpha = jnp.asarray(config.over_relax, dtype)
-    rho_vec = jnp.where(is_eq, config.rho * config.rho_eq_scale,
-                        config.rho).astype(dtype)
 
     # --- OSQP-style problem scaling. SASA cut coefficients reach ~1e6 on
     # the shipped instances (baa99-20); unscaled, the f32 Cholesky of
@@ -171,34 +127,24 @@ def solve_qp(p_diag: jax.Array, g: jax.Array, A: jax.Array,
 
     n_rounds = max(1, config.max_iters // config.check_every)
 
-    # Direct z-update via an explicit inverse computed once per refactor
-    # (LU lowers fine on TPU in f32, ~0.7ms at master sizes); one iterative
-    # -refinement step wipes the f32 inversion error. This replaces a
-    # 25-iteration PCG per ADMM step — a per-step sequential chain of tiny
-    # matvecs that made the master solve latency-bound on TPU (75 of the
-    # 117 ms/iter ssn SD step). The PCG path remains only for emulated-f64
-    # on TPU, where LU/Cholesky lowering faults the worker (see _pcg).
-    use_inv = not (dtype == jnp.float64 and jax.default_backend() == "tpu")
-
-    def _solve_spd(M, Minv, b, x0, pcg_iters=25):
-        if Minv is None:
-            return _pcg(M, b, x0, pcg_iters)
+    # Direct z-update via an explicit inverse computed once per refactor;
+    # one iterative-refinement step wipes the f32 inversion error. Every
+    # ADMM step is then two matvecs instead of a triangular solve chain.
+    def _solve_spd(Minv, M, b):
         x = _dot(Minv, b)
         return x + _dot(Minv, b - _dot(M, x))
 
     def factor(rho_s):
-        """Build (M, Mi) for the z-update at penalty rho_s. Mi is the
-        explicit inverse on the direct path; on the PCG path it is a dummy
-        copy of M (kept so the while-loop carry has one fixed structure)."""
+        """Build (M, Mi) for the z-update at penalty rho_s: the system
+        matrix and its explicit inverse."""
         rho_vec = jnp.where(is_eq, rho_s * config.rho_eq_scale, rho_s)
         M = jnp.diag(p_s + sig) + _dot(As.T * rho_vec[None, :], As)
-        Mi = jnp.linalg.inv(M) if use_inv else M
-        return M, Mi
+        return M, jnp.linalg.inv(M)
 
     def one_step(carry, rho_vec, M, Minv):
         z, zeta, mu = carry
         rhs = sig * z - g_s + _dot(As.T, rho_vec * zeta - mu)
-        z1 = _solve_spd(M, Minv, rhs, z)
+        z1 = _solve_spd(Minv, M, rhs)
         Az = _dot(As, z1)
         v = alpha * Az + (1.0 - alpha) * zeta
         zeta1 = jnp.clip(v + mu / rho_vec, lc, uc)
@@ -228,34 +174,17 @@ def solve_qp(p_diag: jax.Array, g: jax.Array, A: jax.Array,
             jnp.logical_and(it < n_rounds, err > eff_tol),
             jnp.logical_not(stalled))
 
-    # Fused VMEM-resident check interval (ops/pallas/admm_kernel.py): one
-    # kernel launch replaces the ~10-op-per-iteration XLA chain whose
-    # per-op launch latency dominates the master solve on TPU. f32 +
-    # direct-inverse path only; the XLA loop remains for CPU and the
-    # emulated-f64 escape hatch.
-    use_pallas_round = (config.use_pallas and use_inv
-                        and dtype == jnp.float32
-                        and jax.default_backend() == "tpu")
-
     def round_step(carry):
         (z, zeta, mu, it, _, rho_s, err_best, winct, err_mark, _stalled,
          z_best, mu_best, restarts, M, Mi, hard_ct) = carry
         # (M, Mi) travel in the carry and are refactored at the END of a
         # round only when rho actually changed — most check intervals keep
-        # rho (the adaptation deadband), and the [nz, nz] inverse was a
-        # fixed ~25us tax per interval.
+        # rho (the adaptation deadband), so the [nz, nz] inverse is not a
+        # fixed cost of every interval.
         rho_vec = jnp.where(is_eq, rho_s * config.rho_eq_scale, rho_s)
-        if use_pallas_round:
-            from sqlp_tpu.ops.pallas.admm_kernel import admm_round_pallas
-            z, zeta, mu = admm_round_pallas(
-                As, M, Mi, g_s, lc, uc, rho_vec, z, zeta, mu,
-                config.check_every, config.over_relax, config.sigma)
-        else:
-            z, zeta, mu = jax.lax.fori_loop(
-                0, config.check_every,
-                lambda _, c: one_step(c, rho_vec, M,
-                                      Mi if use_inv else None),
-                (z, zeta, mu))
+        z, zeta, mu = jax.lax.fori_loop(
+            0, config.check_every,
+            lambda _, c: one_step(c, rho_vec, M, Mi), (z, zeta, mu))
         pres, dres = residuals(z, zeta, mu)
         err = jnp.maximum(pres, dres)
         # Track the best iterate seen at a check point: under rho
@@ -457,19 +386,19 @@ def solve_qp(p_diag: jax.Array, g: jax.Array, A: jax.Array,
     side_l = jnp.where(strong, mu < 0, near_l)
 
     def polish_pass(carry):
-        side_l, active, nu0 = carry
+        side_l, active = carry
         b_act = jnp.where(side_l, lc, uc)
         usable = jnp.logical_and(active, jnp.abs(b_act) < 1e29)
         w = usable.astype(dtype)
-        # SPD Schur-complement solve of the masked saddle system (avoids
-        # LU, which the TPU f64 path does not lower): Pt = diag(p_s)+delta,
+        # SPD Schur-complement solve of the masked saddle system
+        # (Pt = diag(p_s)+delta):
         #   (A_w Pt^-1 A_w' + delta I) nu = A_w Pt^-1 (-g_s) - w b_act
         #   z = Pt^-1 (-g_s - A_w' nu);  inactive rows decouple to nu=0.
         Aw = As * w[:, None]
         S = _dot(Aw * pt_inv[None, :], Aw.T) + delta * eye
-        Sinv = jnp.linalg.inv(S) if use_inv else None
+        Sinv = jnp.linalg.inv(S)
         rhs = _dot(Aw, pt_inv * (-g_s)) - w * b_act
-        nu = _solve_spd(S, Sinv, rhs, nu0 * w, pcg_iters=200) * w
+        nu = _solve_spd(Sinv, S, rhs) * w
         z_pol = pt_inv * (-g_s - _dot(Aw.T, nu))
         # iterative refinement against the UNregularized KKT system: the
         # delta-regularized solve is only delta-accurate, which leaves the
@@ -478,8 +407,7 @@ def solve_qp(p_diag: jax.Array, g: jax.Array, A: jax.Array,
         for _ in range(2):
             r_z = -g_s - p_s * z_pol - _dot(Aw.T, nu)
             r_nu = w * b_act - _dot(Aw, z_pol)
-            dnu = _solve_spd(S, Sinv, _dot(Aw, pt_inv * r_z) - r_nu,
-                             jnp.zeros_like(nu), pcg_iters=200) * w
+            dnu = _solve_spd(Sinv, S, _dot(Aw, pt_inv * r_z) - r_nu) * w
             z_pol = z_pol + pt_inv * (r_z - _dot(Aw.T, dnu))
             nu = nu + dnu
         # refinement: drop rows whose multiplier has the wrong sign for
@@ -494,12 +422,12 @@ def solve_qp(p_diag: jax.Array, g: jax.Array, A: jax.Array,
         active1 = jnp.logical_or(jnp.logical_and(usable, ~wrong),
                                  jnp.logical_or(viol_l, viol_u))
         side_l1 = jnp.where(viol_l, True, jnp.where(viol_u, False, side_l))
-        return (side_l1, active1, nu), (z_pol, nu)
+        return (side_l1, active1), (z_pol, nu)
 
     err_admm = kkt_err(z, mu)
     best_z, best_mu, best_err = z, mu, err_admm
     for seed in (strong, active_union):
-        carry = (side_l, seed, mu)
+        carry = (side_l, seed)
         for _ in range(3):
             carry, (z_pol, nu) = polish_pass(carry)
             finite = jnp.logical_and(jnp.all(jnp.isfinite(z_pol)),
@@ -544,9 +472,7 @@ def solve_qp(p_diag: jax.Array, g: jax.Array, A: jax.Array,
     r_s = p_s * best_z + g_s + _dot(As.T, best_mu)
     Awd = As * wd[:, None]
     Sd = _dot(Awd, Awd.T) + delta * eye
-    Sdinv = jnp.linalg.inv(Sd) if use_inv else None
-    dmu = _solve_spd(Sd, Sdinv, -_dot(Awd, r_s),
-                     jnp.zeros_like(best_mu), pcg_iters=200) * wd
+    dmu = _solve_spd(jnp.linalg.inv(Sd), Sd, -_dot(Awd, r_s)) * wd
     mu_rep = best_mu + dmu
     err_drep = kkt_err(best_z, mu_rep)
     take_drep = jnp.logical_and(jnp.all(jnp.isfinite(mu_rep)),

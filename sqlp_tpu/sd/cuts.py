@@ -3,7 +3,7 @@
 Port of record:
   * ``argmax_procedure`` (src/sd_algorithm/subprob.jl:141-169) — the
     reference's O(S·D·m2) double loop becomes one [D,R]x[R,S] matmul plus a
-    masked argmax over the dual axis (the MXU hot loop of the solver);
+    masked argmax over the dual axis (the matmul hot loop of the solver);
   * ``build_sasa_cut`` (src/sd_algorithm/epigraph.jl:125-146) — alpha/beta
     assembly from the per-scenario argmax duals, probability-weighted;
   * ``evaluate_epigraph`` / ``evaluate_multi_epigraph``

@@ -67,11 +67,6 @@ def main():
         "no_crossover": dict(dual_crossover=False),
         "no_inc_cut": dict(update_incumbent_cut=False),
         "no_pool_warm": dict(pool_dual_warm_start=False),
-        "no_pallas": dict(
-            pdhg=base.pdhg.__class__(**{**base.pdhg.__dict__,
-                                        "use_pallas": False}),
-            qp=base.qp.__class__(**{**base.qp.__dict__,
-                                    "use_pallas": False})),
         "qp_64max": dict(qp=base.qp.__class__(
             **{**base.qp.__dict__, "max_iters": 64})),
         "pdhg_160max": dict(pdhg=base.pdhg.__class__(

@@ -1,8 +1,8 @@
 """Standardized runs behind RESULTS.md's table.
 
 One run per shipped instance with the documented workload (reference
-driver workloads where they exist), on whatever backend jax selects
-(the table is measured on the real TPU). Prints one line per instance:
+driver workloads where they exist), on whatever backend jax selects.
+Prints one line per instance, with the device it ran on:
 wall, it/s, lb estimate, MC ub with 95% CI.
 
 Usage: python tools/standard_runs.py [instance ...]
@@ -11,7 +11,7 @@ Usage: python tools/standard_runs.py [instance ...]
 import sys
 import time
 
-import numpy as np
+import jax
 
 sys.path.insert(0, ".")
 
@@ -58,7 +58,9 @@ def run_one(name: str, spec: dict) -> None:
     wall = time.time() - t0
     ub, hw, n = solver.evaluate_ci(min_samples=16384, max_samples=16384,
                                    seed=7)
-    print(f"{name}: {iters} iters {wall:.1f}s ({iters / wall:.1f} it/s) "
+    dev = jax.devices()[0]
+    print(f"{name} [{dev.platform} {dev.device_kind}]: {iters} iters "
+          f"{wall:.1f}s ({iters / wall:.1f} it/s) "
           f"lb={solver.lower_estimate:.4f} ub={ub:.4f} +- {hw:.4f} "
           f"(N={n})", flush=True)
 
